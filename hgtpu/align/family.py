@@ -2,7 +2,7 @@
 
 The reference aligns each family's extracted reads against one graph
 index containing all of that family's genes, and downstream drops NH>1
-(multi-gene) alignments (typing_core.py:846-848).  TPU-native equivalent:
+(multi-gene) alignments (typing_core.py:846-848).  Device-native equivalent:
 one concatenated-panel placement matmul scores every (read, gene) pair
 (align.panel.PanelRouter), full variant-graph alignment runs on each
 read's candidate genes only, and a read is kept only when exactly one

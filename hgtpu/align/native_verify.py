@@ -24,10 +24,10 @@ def _load():
     global _lib
     if _lib is not None:
         return _lib
-    path = os.path.join(os.path.dirname(__file__), "..", "..", "native",
-                        "libhgtpu_native.so")
+    from ..native import library_path
+
     try:
-        lib = ctypes.CDLL(path)
+        lib = ctypes.CDLL(library_path())
         lib.hgtpu_gene_create
         lib.hgtpu_verify_batch
     except (OSError, AttributeError):

@@ -3,8 +3,8 @@
 The reference extracts/routes reads by aligning them against ONE spliced
 index (genotype_genome or a family graph index) and binning by locus
 interval (typing_process.py:1604-1716); round-1's ReadExtractor instead
-ran a FULL placement per gene per family — O(genes) MXU dispatches per
-read batch.  This router restores the one-index design TPU-natively:
+ran a FULL placement per gene per family — O(genes) placement dispatches per
+read batch.  This router restores the one-index design on device:
 
   * all genes' PWMs are concatenated with a zero spacer wide enough that
     no diagonal window straddles two genes,

@@ -53,7 +53,7 @@ def args_set_aligner(parser, mismatch=True):
     parser.add_argument("--device-typing", dest="device_typing", type=str,
                         default="auto", choices=("auto", "on", "off"),
                         help="route typing through the device program "
-                             "(auto: on TPU backends when the options "
+                             "(auto: on GPU backends when the options "
                              "are device-compatible)")
     parser.add_argument("--linear-index", dest="graph_index",
                         action="store_false",

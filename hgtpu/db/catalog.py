@@ -1,6 +1,6 @@
 """Graph-reference catalog: the in-memory / on-disk database for one family.
 
-This is the TPU-native replacement for the reference's 10 per-family text
+This is the device-native replacement for the reference's 10 per-family text
 files (``base_backbone.fa``, ``base.snp``, ``base.index.snp``, ``base.link``,
 ``base.haplotype``, ``base.locus``, ``base.allele``, ``base.partial``,
 ``base_sequences.fa``, ``base.snp.freq`` — written at

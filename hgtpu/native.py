@@ -1,7 +1,8 @@
 """ctypes bindings for the native runtime (native/libhgtpu_native.so).
 
-Falls back to pure-numpy implementations when the library is absent so
-the framework stays importable anywhere; `make -C native` builds it.
+The library is built from native/*.cpp (`make -C native`) the first time
+a process needs it; a failed build raises.  The pure-numpy fallbacks
+cover a library that exists but cannot be loaded.
 """
 from __future__ import annotations
 
@@ -10,17 +11,39 @@ import os
 
 import numpy as np
 
+NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
+LIB_NAME = "libhgtpu_native.so"
+
 _LIB = None
+
+
+def library_path(native_dir: str = NATIVE_DIR) -> str:
+    """Path of the native library in `native_dir`, built there with
+    `make` when it is absent.  The check and the build hold an exclusive
+    lock on `<native_dir>/.build.lock`, so concurrent processes (test
+    workers) build once and never load a half-written file."""
+    import fcntl
+    import subprocess
+
+    path = os.path.join(native_dir, LIB_NAME)
+    with open(os.path.join(native_dir, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            r = subprocess.run(["make", "-C", native_dir],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError("native build failed (make -C %s):\n%s%s"
+                                   % (native_dir, r.stdout, r.stderr))
+    return path
 
 
 def _load():
     global _LIB
     if _LIB is not None:
         return _LIB
-    path = os.path.join(os.path.dirname(__file__), "..", "native",
-                        "libhgtpu_native.so")
     try:
-        lib = ctypes.CDLL(path)
+        lib = ctypes.CDLL(library_path())
     except OSError:
         _LIB = False
         return False

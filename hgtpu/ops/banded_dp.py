@@ -18,11 +18,11 @@ catalog indel alternatives than the packed slots, or deletion chains
 longer than the closure depth raise the per-proposal `overflow` flag and
 the caller falls back to the host DFS for those entries.
 
-TPU mapping: every transition is a *static diagonal shift*.  The gene's
+Device mapping: every transition is a *static diagonal shift*.  The gene's
 distinct catalog deletion/insertion lengths are compile-time constants,
 so each relaxation is a masked elementwise min over a shifted [E, D]
-plane — no data-dependent scatters, which serialize on TPU (the first
-version used `.at[].min` scatters and ran ~100x slower than this form).
+plane — no data-dependent scatters, which serialize on an accelerator (the
+first version used `.at[].min` scatters).
 
 The DP is exact *modulo the haplotype-window constraint* (which is
 path-dependent): its cost can only be lower than the constrained DFS's,
@@ -108,12 +108,6 @@ class BandedDPTables:
         alignment exists within `max_novel` novel edits inside the band
         (costs above the budget saturate — they can never win, and
         saturation is what lets the deletion-chain closure converge)."""
-        from ..utils.trace import TRACE
-        E, W = reads.shape
-        # per layer: ~(3 + len(del_lens)*NITER + NI) masked-min relaxations
-        # over the [E, D] plane
-        relax = 3 + len(self.del_lens) * 4 + 2
-        TRACE.count("flops.device_dp", float(E) * W * D * relax)
         return _banded_costs(self.arrays,
                              jnp.asarray(reads, jnp.int8),
                              jnp.asarray(lens, jnp.int32),

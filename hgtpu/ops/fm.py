@@ -1,6 +1,6 @@
 """FM-index with batched backward search on device.
 
-The TPU-native counterpart of the reference's HISAT2 FM machinery
+The device-native counterpart of the reference's HISAT2 FM machinery
 (components #1/#3: `hisat2-build` linear index + `-k` search).  The index
 is built natively (SA-IS, hgtpu.native) on host; queries run as a jitted
 `lax.scan` over query positions with per-step rank queries expressed as
@@ -9,7 +9,7 @@ gathers into the occurrence table, vmapped across the read batch.
 Occurrence layout: full-resolution occ[i, c] (int32) — 24 B/base, sized
 for locus panels and genotype-genome regions (up to tens of Mbp).  For
 full-genome scale the table checkpoints per 128-base block with in-block
-popcounts (planned; see SURVEY.md §7 "FM-index rank on TPU").
+popcounts (planned; see SURVEY.md §7, FM-index rank on device).
 """
 from __future__ import annotations
 
@@ -31,8 +31,8 @@ class FMIndex:
     checkpoint=False keeps the full occ table (24 B/base — fastest rank,
     fine for locus panels); checkpoint=True stores occ every CKPT_BLOCK
     positions plus the BWT (≈1.5 B/base) and counts within blocks at
-    query time — the genome-scale layout (SURVEY.md §7 "FM-index rank on
-    TPU": checkpointed occ sized for memory, batched queries).
+    query time — the genome-scale layout (SURVEY.md §7, FM-index rank on
+    device: checkpointed occ sized for memory, batched queries).
     """
 
     def __init__(self, codes: np.ndarray, checkpoint: bool = False):

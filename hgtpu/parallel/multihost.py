@@ -1,14 +1,14 @@
-"""Multi-host scaffolding: `jax.distributed` init + DCN read-shard
+"""Multi-host scaffolding: `jax.distributed` init + cross-host read-shard
 distribution.
 
 The reference scales across hosts by running independent processes over
 manually-striped sample lists (`--job-range`, hisatgenotype_args.py:235)
-and merging text output.  The TPU-native equivalent: every host joins one
+and merging text output.  The device-native equivalent: every host joins one
 `jax.distributed` job, loads only its contiguous shard of the global read
-set (the DCN-side distribution — reads never cross hosts), contributes it
+set (the host-side distribution — reads never cross hosts), contributes it
 to a global array over the full-slice mesh, and the same shard_map typing
 program (`parallel.e2e.ShardedTyper`) runs unchanged — per-allele
-evidence and EM numerators ride ICI/DCN through the `psum`s already in
+evidence and EM numerators ride the interconnect through the `psum`s already in
 the program.
 
 Validated structurally by tests/test_multihost.py: 2 processes x 4
@@ -25,7 +25,7 @@ def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None):
     """Join (or start) the distributed job.  Arguments fall back to
     HGTPU_COORDINATOR / HGTPU_NUM_PROCESSES / HGTPU_PROCESS_ID, then to
-    jax's own auto-detection (TPU pod metadata / cluster envs)."""
+    jax's own auto-detection (cluster environment variables)."""
     import jax
 
     coordinator_address = coordinator_address or \
@@ -130,7 +130,7 @@ def type_reads_device_distributed(gene, reads_1, reads_2=None, opts=None,
     (`reads_*`; `global_start` = the shard's offset, `n_global` = total
     reads across processes).  The process types its shard on its LOCAL
     mesh — placement, tiered spelling, gate, counting — and three small
-    host-level merges ride DCN (jax.distributed collectives):
+    host-level merges ride jax.distributed collectives:
 
       1. the device pileups sum across processes, and each process's
          excluded pairs' host alignments merge in, so EVERY gate

@@ -199,7 +199,6 @@ def _align_punts(gene, opts, reads_1, reads_2, idx, winner, aligner=None):
     mate_reads = [reads_1] + ([reads_2] if reads_2 is not None else [])
     mate_tag = ["L", "R"]
     need_align = [[] for _ in mate_reads]
-    n_tier1 = 0
     for i in idx:
         for mi, reads in enumerate(mate_reads):
             a = None
@@ -213,12 +212,8 @@ def _align_punts(gene, opts, reads_1, reads_2, idx, winner, aligner=None):
             if a is None:
                 need_align[mi].append(i)
             else:
-                n_tier1 += 1
                 by_pair[int(i)].append(a)
-    n_tier2 = sum(len(v) for v in need_align)
-    TRACE.count("rescue.tier1_mates", n_tier1)
-    TRACE.count("rescue.tier2_mates", n_tier2)
-    if n_tier2:
+    if any(need_align):
         aligner = aligner or GeneAligner(
             gene, num_editdist=opts.num_editdist,
             leftmost=opts.family == "codis")
@@ -498,15 +493,12 @@ def _count_rescued(gene, opts, reads_1, by_pair, idx, mpileup, stats,
         _t.__enter__()
         unique_hts = sorted(set().union(*(g[1] for g in grouped.values())))
         # same counting/fold selection as type_gene: the fused device
-        # fold at scale / on TPU backends (bit-identical,
+        # fold at scale / on an accelerator (bit-identical,
         # tests/test_device_count.py), the host reduceat fold otherwise
-        from ..typer.engine import DEVICE_FOLD_MIN_A, _tpu_backend
+        from ..typer.engine import use_device_fold
 
-        use_device = opts.device_counting == "on" or (
-            opts.device_counting == "auto"
-            and (A >= DEVICE_FOLD_MIN_A or _tpu_backend()))
         folded = None
-        if use_device:
+        if use_device_fold(opts, A):
             folded = typer_h.device_fold_run(unique_hts, novel, grouped)
         if folded is not None:
             stats_levels = [full_stats, exon_stats, primary_stats] \

@@ -1,18 +1,18 @@
 """Multi-chip sharding of the typing pipeline.
 
 The reference parallelizes with multiprocessing.Pool over samples and
-`hisat2 -p N` threads (SURVEY.md §2 parallelism inventory); the TPU-native
+`hisat2 -p N` threads (SURVEY.md §2 parallelism inventory); the device-native
 equivalent is data parallelism over reads/haplotypes on a device mesh:
 
 - reads are sharded over the "dp" mesh axis (each chip places its shard
   against the replicated backbone PWM),
 - haplotype batches are sharded likewise; each chip computes its
   compatibility masks against the replicated link tables and the
-  per-allele evidence is merged with `psum` over ICI,
+  per-allele evidence is merged with `psum` across devices,
 - the EM abundance solver runs replicated on the reduced counts.
 
 Everything compiles under `jit` + `shard_map`, so the same program runs
-on 1 chip, an 8-device host, or a multi-host slice (DCN handled by jax).
+on 1 chip, an 8-device host, or several hosts (cross-host traffic handled by jax).
 """
 from __future__ import annotations
 
@@ -44,14 +44,17 @@ from ..ops.placement import correlate_scores as _place_scores
 
 
 def _em_iterations(M, counts, iters=100):
+    # full f32 products: a GPU would otherwise run them in TF32
+    hi = jax.lax.Precision.HIGHEST
     Mf = M.astype(jnp.float32)
-    p = Mf.T @ (counts / jnp.maximum(Mf.sum(axis=1), 1.0))
+    p = jnp.dot(Mf.T, counts / jnp.maximum(Mf.sum(axis=1), 1.0),
+                precision=hi)
     p = p / jnp.maximum(p.sum(), 1e-30)
 
     def body(_, p):
-        denom = Mf @ p
+        denom = jnp.dot(Mf, p, precision=hi)
         w = jnp.where(denom > 0, counts / jnp.maximum(denom, 1e-30), 0.0)
-        p = (Mf.T @ w) * p
+        p = jnp.dot(Mf.T, w, precision=hi) * p
         return p / jnp.maximum(p.sum(), 1e-30)
 
     return jax.lax.fori_loop(0, iters, body, p)
@@ -124,7 +127,7 @@ def sharded_banded_dp(mesh: Mesh, axis: str = "dp", max_novel: int = 2):
 
 
 def sharded_count(mesh: Mesh, axis: str = "dp"):
-    """Data-parallel compatibility counting + ICI-reduced allele totals.
+    """Data-parallel compatibility counting + psum-reduced allele totals.
 
     step(links_packed [V+1,W] u32 repl, nd_pos [Vnd] repl,
          nd_prefix [Vnd+1,A] repl, del_pos/del_right [D] repl,
@@ -147,7 +150,7 @@ def sharded_count(mesh: Mesh, axis: str = "dp"):
         masks = _compat(links_packed, nd_pos, nd_prefix, del_pos, del_right,
                         del_links, var_pos, var_right, lefts, rights, vars_)
         totals = jax.lax.psum(
-            jnp.sum(masks.astype(jnp.int32), axis=0), axis)   # ICI reduce
+            jnp.sum(masks.astype(jnp.int32), axis=0), axis)   # cross-device reduce
         prob = _em_iterations(class_mask, class_counts)        # replicated
         return masks, totals, prob
 

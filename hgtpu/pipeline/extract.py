@@ -5,9 +5,9 @@ Functional equivalent of the reference's extract_reads
 family references, keep uniquely-best (NH==1) assignments, and emit
 per-family read sets.  The reference does this by aligning to ONE
 spliced genotype_genome index with HISAT2 and routing by locus interval;
-the TPU-native equivalent is one concatenated-panel placement matmul
+the device-native equivalent is one concatenated-panel placement matmul
 (align.panel.PanelRouter) that scores every (read, gene) pair in a
-single MXU dispatch, followed by full variant-graph alignment only on
+single matmul dispatch, followed by full variant-graph alignment only on
 each read's candidate genes.
 """
 from __future__ import annotations

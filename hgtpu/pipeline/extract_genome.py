@@ -7,7 +7,7 @@ reads whose placement lands inside a family locus into that family's
 read set (:1691-1699), and optionally bin every uniquely-mapped read
 into 20-Mbp whole-genome blocks (block_size, :1534-1594, 1700-1702).
 
-TPU-native: a checkpointed FM index over the spliced genome places
+Device-native: a checkpointed FM index over the spliced genome places
 fixed-length seeds from both read ends (batched backward search on
 device); candidate start positions are then VERIFIED by vectorized
 Hamming comparison against the genome, and NH is the count of distinct

@@ -1,7 +1,7 @@
 """End-to-end genotyping orchestration.
 
 Equivalent of the reference's genotyping_locus/typing drivers
-(typing_core.py:2278-2691): align read batches with the TPU aligner,
+(typing_core.py:2278-2691): align read batches with the device aligner,
 group mates, run the typing engine, and (for simulations) sweep random
 allele draws checking that the truth ranks #1 — the reference's built-in
 self-test (`--debug basic,test_size:N,set_seed:S`).
@@ -42,8 +42,8 @@ def type_reads_linear(gene: GeneRef, reads_1, reads_2=None, opts=None):
 
 def _take_device_path(opts, paired) -> bool:
     """Route typing through the sharded device program (the production
-    path, VERDICT r3 item 1)?  "on" forces it, "auto" takes it on a TPU
-    backend whenever the options are device-compatible."""
+    path, VERDICT r3 item 1)?  "on" forces it, "auto" takes it on an
+    accelerator whenever the options are device-compatible."""
     if opts.device_typing == "off":
         return False
     from ..parallel.production import device_typing_supported
@@ -52,9 +52,9 @@ def _take_device_path(opts, paired) -> bool:
         return False
     if opts.device_typing == "on":
         return True
-    from ..typer.engine import _tpu_backend
+    from ..backend import on_accelerator
 
-    return _tpu_backend()
+    return on_accelerator()
 
 
 def type_reads(gene: GeneRef, reads_1, reads_2=None, opts=None,
@@ -97,11 +97,14 @@ def type_from_sam(gene: GeneRef, sam_path, opts=None):
 
 
 def type_family(catalog, reads_1, reads_2=None, locus_list=None, opts=None,
-                family_aligner=None, sam_out=None, threads=1, runlog=None):
+                sam_out=None, threads=1, runlog=None):
     """Type every gene of a family from one read set.
 
     Reads are assigned cross-gene by the NH==1 uniqueness rule
     (FamilyAligner); each gene in locus_list is then typed independently.
+    A one-gene family goes through type_reads, so it reaches the device
+    program; a multi-gene family types each gene's reads on the host
+    engine.
     Ref: typing() per-gene loop (typing_core.py:370-1789).
     Returns {gene: GeneTypingResult}.
 
@@ -119,18 +122,26 @@ def type_family(catalog, reads_1, reads_2=None, locus_list=None, opts=None,
         return {g: type_reads_linear(catalog.genes[g], reads_1, reads_2,
                                      opts)
                 for g in (locus_list or list(catalog.genes))}
-    fa = family_aligner or FamilyAligner(catalog,
-                                         num_editdist=opts.num_editdist,
-                                         leftmost=opts.family == "codis")
     genes = locus_list or list(catalog.genes)
-    per_gene_1 = fa.align_batch([n for n, _ in reads_1],
-                                [s for _, s in reads_1], "L")
-    per_gene_2 = None
-    if reads_2:
-        per_gene_2 = fa.align_batch([n for n, _ in reads_2],
-                                    [s for _, s in reads_2], "R")
-    def run_gene(g):
-        try:
+    if len(catalog.genes) == 1 and not sam_out:
+        # a one-gene family keeps every aligned read under the NH==1 rule
+        # (FamilyAligner with one gene is GeneAligner), so its run is
+        # type_reads over all reads: the device program or the host
+        # engine, as type_reads chooses
+        def type_one(g):
+            return type_reads(catalog.genes[g], reads_1, reads_2 or None,
+                              opts)
+    else:
+        fa = FamilyAligner(catalog, num_editdist=opts.num_editdist,
+                           leftmost=opts.family == "codis")
+        per_gene_1 = fa.align_batch([n for n, _ in reads_1],
+                                    [s for _, s in reads_1], "L")
+        per_gene_2 = None
+        if reads_2:
+            per_gene_2 = fa.align_batch([n for n, _ in reads_2],
+                                        [s for _, s in reads_2], "R")
+
+        def type_one(g):
             by_read = defaultdict(list)
             batches = [per_gene_1[g]]
             if per_gene_2:
@@ -145,7 +156,11 @@ def type_family(catalog, reads_1, reads_2=None, locus_list=None, opts=None,
                 from ..align.sam import write_sam
                 write_sam("%s.%s.sam" % (sam_out, g), catalog.genes[g],
                           groups)
-            return g, type_gene(catalog.genes[g], groups, opts)
+            return type_gene(catalog.genes[g], groups, opts)
+
+    def run_gene(g):
+        try:
+            return g, type_one(g)
         except Exception:
             if runlog is None:
                 raise

@@ -1,6 +1,6 @@
 """Device-side read->allele compatibility counting.
 
-The TPU port of GeneCounter.alleles_for_ht (the reference's add_count set
+The device port of GeneCounter.alleles_for_ht (the reference's add_count set
 algebra, typing_core.py:626-677) over whole haplotype batches:
 
     incl[h]  = AND over the ht's known variants of links[v]      (bitsets)
@@ -9,12 +9,10 @@ algebra, typing_core.py:626-677) over whole haplotype batches:
     count[r] = sum over the read's hts of (incl & ~excl)
 
 Everything is static-shape jax: variant lists padded to MAX_HT_VARS, ht
-batches padded to a bucket size.  The bitset AND-reduce can run through a
-Pallas kernel (hgtpu.ops.compat_kernel) or plain jnp gathers.
+batches padded to a bucket size.  The bitset AND-reduce is a chain of
+plain jnp gathers that XLA fuses into one loop kernel.
 """
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +26,7 @@ MAX_HT_VARS = 16
 class DeviceCounter:
     """Precomputed device tables for one gene."""
 
-    def __init__(self, gene: GeneRef, use_pallas: bool = False):
+    def __init__(self, gene: GeneRef):
         self.gene = gene
         A = gene.n_alleles
         self.A = A
@@ -56,7 +54,6 @@ class DeviceCounter:
             np.concatenate([gene.var_pos.astype(np.int32), [0]]))
         self.var_right_d = jnp.asarray(
             np.concatenate([gene.var_right.astype(np.int32), [0]]))
-        self.use_pallas = use_pallas
 
     # ------------------------------------------------------------------ #
     def pack_hts(self, hts, k: int = MAX_HT_VARS):
@@ -82,26 +79,22 @@ class DeviceCounter:
                        self.del_pos, self.del_right, self.del_links,
                        self.var_pos_d, self.var_right_d,
                        jnp.asarray(lefts), jnp.asarray(rights),
-                       jnp.asarray(vars_), self.use_pallas)
+                       jnp.asarray(vars_))
         return np.asarray(bits)[:, : self.A]
 
 
-@functools.partial(jax.jit, static_argnames=("use_pallas",))
+@jax.jit
 def _compat(links_packed, nd_pos, nd_prefix, del_pos, del_right, del_links,
-            var_pos, var_right, lefts, rights, vars_, use_pallas=False):
+            var_pos, var_right, lefts, rights, vars_):
     H = lefts.shape[0]
     W = links_packed.shape[1]
     n_sentinel = links_packed.shape[0] - 1
 
     # ---- incl: AND-reduce of link bitsets ---- #
-    if use_pallas:
-        from ..ops.compat_kernel import and_reduce_pallas
-        incl = and_reduce_pallas(links_packed, vars_)          # [H, W] u32
-    else:
-        rows = links_packed[vars_]                             # [H, K, W]
-        incl = rows[:, 0]
-        for k in range(1, vars_.shape[1]):
-            incl = incl & rows[:, k]
+    rows = links_packed[vars_]                                 # [H, K, W]
+    incl = rows[:, 0]
+    for k in range(1, vars_.shape[1]):
+        incl = incl & rows[:, k]
 
     # ---- excl: range counts per allele ---- #
     i0 = jnp.searchsorted(nd_pos, lefts, side="left")
@@ -111,6 +104,8 @@ def _compat(links_packed, nd_pos, nd_prefix, del_pos, del_right, del_links,
               & (del_pos[None, :] <= rights[:, None]))
              | ((del_right[None, :] >= lefts[:, None])
                 & (del_right[None, :] <= rights[:, None])))
+    # int32 x int32 product with int32 accumulation: exact (0/1 operands,
+    # sums bounded by the deletion count)
     cnt = cnt + jnp.dot(dmask.astype(jnp.int32), del_links,
                         preferred_element_type=jnp.int32)
 

@@ -117,6 +117,11 @@ def single_abundance(cmpt_counts: dict,
 # --------------------------------------------------------------------------- #
 # Dense device EM
 # --------------------------------------------------------------------------- #
+# f32 products with real-valued operands: pinned to full f32 so a GPU
+# does not run them in TF32 (about three decimal digits)
+_HI = jax.lax.Precision.HIGHEST
+
+
 @jax.jit
 def _em_dense(M, counts, inv_len, use_len):
     """M: [C, A] bool membership, counts: [C] f32, inv_len: [A] f32,
@@ -129,11 +134,11 @@ def _em_dense(M, counts, inv_len, use_len):
         return p_len / jnp.maximum(p_len.sum(), 1e-30)
 
     def nxt(p):
-        denom = Mf @ p                                   # [C]
+        denom = jnp.dot(Mf, p, precision=_HI)                # [C]
         w = jnp.where(denom > 0, counts / jnp.maximum(denom, 1e-30), 0.0)
-        return norm((Mf.T @ w) * p)
+        return norm(jnp.dot(Mf.T, w, precision=_HI) * p)
 
-    p0 = norm(Mf.T @ (counts / sizes))
+    p0 = norm(jnp.dot(Mf.T, counts / sizes, precision=_HI))
 
     def body(state):
         p, diff, it = state

@@ -1,6 +1,6 @@
 """DNA sequence encoding utilities.
 
-TPU-first convention: bases are int8 codes A=0 C=1 G=2 T=3, N=4; '.' (gap /
+Device-first convention: bases are int8 codes A=0 C=1 G=2 T=3, N=4; '.' (gap /
 deleted) = 5.  All device-side sequence arrays use this encoding so that
 complement is ``3 - code`` and 2-bit packing is ``code & 3``.
 """

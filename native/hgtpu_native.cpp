@@ -1,7 +1,7 @@
 // hgtpu native runtime pieces.
 //
 // The reference's native layer is the HISAT2 C++ engine (graph FM index;
-// SURVEY.md components #1-#4).  hgtpu keeps alignment math on the TPU, but
+// SURVEY.md components #1-#4).  hgtpu keeps alignment math on the device, but
 // the host-side index construction and IO run natively:
 //   - SA-IS suffix array construction (linear time) + BWT derivation for
 //     the FM index (hgtpu/ops/fm.py consumes these arrays)

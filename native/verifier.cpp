@@ -1,7 +1,7 @@
 // Native variant-graph verifier.
 //
 // C++ port of hgtpu/align/verify.py's edit-script search (itself the
-// TPU-native replacement for HISAT2's extension stage): walk match runs,
+// device-native replacement for HISAT2's extension stage): walk match runs,
 // branch at indel-variant positions and observed mismatches, known
 // catalog variants free, novel edits charged to the budget.  Exploration
 // order matches the Python implementation exactly (plain spelling first,

@@ -79,23 +79,6 @@ def test_checkpointed_occ_matches_full():
     assert ckpt_bytes * 8 < 24 * (len(text) + 1)
 
 
-def test_pallas_placement_matches_xla():
-    import jax.numpy as jnp
-    from hgtpu.ops.placement import correlate_scores
-    from hgtpu.ops.placement_pallas import correlate_scores_pallas
-
-    rng = np.random.default_rng(3)
-    P, m, N = 700, 96, 40
-    pwm = np.zeros((P + m, 5), np.float32)
-    pwm[np.arange(P), rng.integers(0, 4, P)] = 1.0
-    reads = rng.integers(0, 5, (N, m)).astype(np.int8)
-    a = np.asarray(correlate_scores(jnp.asarray(pwm), jnp.asarray(reads)))
-    b = np.asarray(correlate_scores_pallas(jnp.asarray(pwm),
-                                           jnp.asarray(reads)))
-    assert a.shape == b.shape
-    assert np.allclose(a, b, atol=1e-3), np.abs(a - b).max()
-
-
 def test_linear_aligner_mismatch_tolerant():
     """The linear path is a real alignment (hisat2 -k 10 semantics,
     typing_common.py:995-1027): with a 5% per-base error rate every
